@@ -5,7 +5,7 @@
   gmix_tpu train      [-k ckpt] TRAIN TEST  (reference: gmix -t)
   gmix_tpu generate   -k ckpt PROMPT OUT SIZE TEMP   (reference: gmix -g)
 
-plus TPU-native knobs the reference lacks: --streams (block-parallel lanes),
+plus knobs the reference lacks: --streams (block-parallel lanes),
 --chunk (scan granularity), --profile (ensemble preset), --save/--load
 (model checkpoints at any point).
 """

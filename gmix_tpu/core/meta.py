@@ -3,7 +3,7 @@
 Heterogeneous model instances are packed into *flat arenas*: every table of a
 model family lives in ONE (S, total) array, and a per-instance offset vector
 turns each family's lookups into a single batched gather and each update into
-a single batched scatter. This is the TPU-native replacement for the
+a single batched scatter. This replaces the
 reference's per-instance virtual dispatch (src/predictor.cpp:360-387): the
 per-bit kernel count is O(model families), not O(instances) — the previous
 bucketed-by-table-size layout still cost ~100 gather/scatter kernels per bit
@@ -20,14 +20,16 @@ import numpy as np
 
 from ..config import EnsembleSpec
 
-LANE = 128  # pad mixer weight rows to the TPU lane width
+# mixer weight rows pad to a multiple of LANE; the row width fixes the
+# mixer's summation trees, so it is part of the archive format
+LANE = 128
 MAX_SKIP = 8  # skip contexts hash at most 8 recent bytes (skip-context.h)
 ROLL_BASE = 0x01000193  # rolling-hash base: FNV-32 prime (odd -> bijective mult)
 APM_BINS = 33  # SSE/APM probability-quantization bins per bit position
 APM_SPAN = 16.0  # bins cover logit(p) in [-APM_SPAN, APM_SPAN]
 # PPM rows carry 256 symbol counts + the owner tag in lane PPM_TAG_LANE,
-# padded to PPM_ROW_W u16 lanes (physical layout pads the minor dim to the
-# 128-lane tile anyway, so the extra lanes are free)
+# padded to PPM_ROW_W u16 lanes (544 bytes, a multiple of 32); the width is
+# part of the checkpoint format
 PPM_TAG_LANE = 256
 PPM_ROW_W = 272
 DENSE_MAX = 16  # mixer tables up to this many rows stay dense-resident
@@ -51,11 +53,10 @@ class Meta:
     # (ctx*256 + bit_ctx) % table_size becomes block = ctx & (2^tb - 1),
     # lane = bit_ctx: every indirect context is byte-stable, so the 8 bit
     # sub-steps of one byte all land in ONE 256-lane block. The step gathers
-    # each model's block once per byte (a contiguous-row gather, vectorized on
-    # TPU), does the per-bit reads/updates as dense one-hot selects in
-    # registers, and scatters the block back once per byte — measured ~10x
-    # cheaper than per-bit element scatters into the flat arena, which XLA:TPU
-    # serializes at ~50ns/element.
+    # each model's block once per byte (a contiguous-row gather), does the
+    # per-bit reads/updates as dense one-hot selects in registers, and
+    # scatters the block back once per byte, instead of 8 dependent per-bit
+    # element scatters into the flat arena.
     # NOTE: the reference sizes these tables (1<<tb)*256 + 1 to break modular
     # collision alignment (indirect.cpp:15-19). Power-of-two tables keep the
     # block decomposition exact; contexts are murmur-hashed, which supplies

@@ -1,22 +1,21 @@
 """The fused codec step: the reference's Predict/Encode/Perceive/Learn bit
 loop (src/runner/runner-utils.cpp:50-65) restructured as one scanned,
-stream-batched TPU program.
+stream-batched device program.
 
 Key design properties (SURVEY.md 7):
 
 - Scan is over BYTES; the 8 bit sub-steps are ONE shared body instantiated
-  either statically unrolled (TPU: j-dependent selects fold away, best
-  runtime) or as a lax.scan over bits (CPU/tests: ~8x smaller graph, fast
-  cold compiles). There is NO lax.cond in the per-bit path: an identity cond
-  branch carrying a multi-MB tensor (LSTM weight histories, PPM tables)
-  forces XLA:TPU to emit a physical copy per iteration. Byte-boundary work
-  simply runs first and byte-end work last.
+  either statically unrolled (j-dependent selects fold away; no inner loop)
+  or as a lax.scan over bits (~8x smaller graph, fast cold compiles;
+  default_bit_scan picks per backend). There is NO lax.cond in the per-bit
+  path: an identity cond branch carrying a multi-MB tensor (LSTM weight
+  histories, PPM tables) can force a physical copy per iteration.
+  Byte-boundary work simply runs first and byte-end work last.
 - All per-bit model state whose gating context is byte-stable (all indirect
   models, 27 of 33 mixers, the match tables) is gathered once per byte as
   contiguous rows, updated in registers across the sub-steps with dense
-  one-hot selects, and scattered back once per byte. Per-bit element
-  scatters into the GB-scale arenas serialize at ~50ns/element on TPU and
-  dominated the old step (measured 4.5x whole-step speedup from this).
+  one-hot selects, and scattered back once per byte, instead of per-bit
+  element scatters into the GB-scale arenas.
 - Truncated-BPTT fires when the LSTM epoch counter wraps, i.e. at statically
   known byte positions (every `horizon` bytes). When the scan chunk is a
   multiple of the horizon, the scan nests as [segments x horizon bytes] and
@@ -30,25 +29,28 @@ Key design properties (SURVEY.md 7):
 - Encode and decode are the same traced program; `decode` is a traced scalar
   selecting the bit source, making encoder/decoder model-state divergence
   structurally impossible.
+- No dot: every inexact float reduction and contraction is a fixed binary
+  tree of f32 adds (_tree_sum), so an encoder and a decoder compiled in
+  different processes, at different stream-batch shapes or on different
+  backends sum in the same order.
 - Every model family lives in ONE flat arena (core/meta.py), so the per-bit
   hot path is a handful of batched gathers/scatters with provably unique
-  indices (`unique_indices=True` keeps the vectorized TPU scatter emitter).
+  indices (`unique_indices=True`).
 - The 33-mixer GLN's "earlier mixers in the same layer" term
   (mixer.cpp:60-64) is a strictly-lower-triangular linear system per layer,
-  solved with one batched unit-diagonal triangular solve instead of a
-  24-step sequential chain.
+  solved by nilpotent doubling instead of a 24-step sequential chain.
 - The reference's active-model protocol (short-term-memory.cpp:187-197: a
   model predicting exactly logit 0 is excluded from mixing and updates) is
   realised densely: a 0 logit contributes 0 to every mixer dot product and
   receives a 0 weight update, so no index lists are needed.
 - Ops touching the big per-stream LSTM tensors (out_w weight history) use
-  explicit multiply+reduce instead of dot_general so XLA assigns them the
-  carry layout and emits no layout-conversion copies in the loop body.
+  explicit multiply+reduce on a dynamic_slice of the scalar epoch, not
+  batched gather/scatter indexing, so no layout-conversion copy of the
+  whole history is needed per byte.
 """
 from __future__ import annotations
 
 import functools
-import os
 from typing import Dict, Optional, Tuple
 
 import jax
@@ -74,14 +76,6 @@ from .meta import APM_BINS, APM_SPAN, Meta, PPM_ROW_W, PPM_TAG_LANE, ROLL_BASE
 F32 = jnp.float32
 U32 = jnp.uint32
 I32 = jnp.int32
-
-
-def use_fused(meta) -> bool:
-    """GMIX_FUSED=1 routes the 8 bit sub-steps through the fused Pallas
-    kernel (core/fused.py). Off by default until flipped per-backend; the
-    choice must be consistent between a stream's encode and decode (the
-    Mosaic compiler may round fused multiply-adds differently from XLA)."""
-    return os.environ.get("GMIX_FUSED") == "1"
 
 
 def _set(d: Dict, **kw) -> Dict:
@@ -204,9 +198,8 @@ def _ppm_rows(stm: Dict, ctx: jnp.ndarray, meta: Meta):
     histogram pollution, which is what lets hashed fixed-order tables stand in
     for the reference's exact 2 GB suffix tree (mod_ppmd.cpp:126-330) at deep
     orders. The tag RIDES IN THE ROW (lane 256 of the widened row) instead of
-    a separate (S, rows) array: a TPU element scatter costs as much as a full
-    row scatter (~68-98 ns, tools/tpu_scatter_width_bench.py), so folding the
-    tag into the row write removes one scatter call + S*NO rows per byte."""
+    a separate (S, rows) array, so one row write carries counts and tag: one
+    scatter call and S*NO element writes fewer per byte."""
     S = ctx.shape[0]
     cv = ctx[:, jnp.asarray(meta.ppm_slots)]
     h = _iar(cv & jnp.asarray(meta.ppm_masks)[None, :])
@@ -388,8 +381,10 @@ def _lstm_forward(stm: Dict, ltm: Dict, meta: Meta) -> Tuple[Dict, Dict]:
     # symbol embedding column + dense input transform (lstm-layer.cpp:222-241);
     # the weight matrix is stored split (w_sym | w_in) so neither op slices it
     w_sym = jnp.take_along_axis(lw["w_sym"], sym[:, None, None, None], axis=3)[..., 0]  # (S,3,C)
-    f = w_sym + jnp.einsum("sgcr,sr->sgc", lw["w_in"], li, preferred_element_type=F32)
-    ivar = jax.lax.rsqrt(jnp.mean(f * f, axis=2) + F32(1e-5))  # (S,3)
+    f = w_sym + _tree_sum(lw["w_in"] * li[:, None, None, :])
+    # 1/sqrt, not rsqrt: sqrt and divide are correctly rounded on every
+    # backend, rsqrt is a backend approximation
+    ivar = F32(1.0) / jnp.sqrt(_tree_sum(f * f) / F32(C) + F32(1e-5))  # (S,3)
     norm = f * ivar[:, :, None]
     pre = norm * lw["gamma"] + lw["beta"]
     # tanh/exp/logistic here are the deterministic polynomial kernels
@@ -405,15 +400,13 @@ def _lstm_forward(stm: Dict, ltm: Dict, meta: Meta) -> Tuple[Dict, Dict]:
     hidden = jnp.concatenate([outg * tanh_c, jnp.ones((S, 1), F32)], axis=1)
 
     # per-epoch output layer (lstm.cpp:91-122); out_w is (S, Hz, C+1, OUT)
-    # with OUT minor (lane-friendly) and is sliced with dynamic_slice on the
-    # scalar epoch — batched gather/scatter indexing here forced a full
-    # layout-conversion copy of the (S,Hz,OUT,C+1) array every byte (~127us
-    # at S=16, the single largest op after the block-arena rework)
+    # with OUT minor and is sliced with dynamic_slice on the scalar epoch
+    # (see the module docstring on layout copies)
     w_e = jax.lax.dynamic_index_in_dim(lw["out_w"], e, 1, keepdims=False)  # (S, C+1, OUT)
-    logits = jnp.sum(w_e * hidden[:, :, None], axis=1)
+    logits = _tree_sum(w_e * hidden[:, :, None], axis=1)
     maxv = jnp.maximum(jnp.max(logits, axis=1, keepdims=True), F32(0.0))  # lstm.cpp:105-113
     probs = exp_det(logits - maxv)
-    probs = probs / jnp.sum(probs, axis=1, keepdims=True)
+    probs = probs / _tree_sum(probs)[:, None]
 
     gate_state = jnp.stack([forget, innode, outg], axis=1)  # (S,3,C)
     lst = _set(
@@ -454,7 +447,7 @@ def _lstm_bptt(lst: Dict, lw: Dict, meta: Meta) -> Tuple[Dict, Dict]:
         out_err = lst["outputs"][:, epoch] - jax.nn.one_hot(in_hist[:, epoch], OUT, dtype=F32)
         # multiply+reduce over the 256 symbols (see layout note in _lstm_forward)
         w_e = jax.lax.dynamic_index_in_dim(lw["out_w"], epoch, 1, keepdims=False)
-        he = jnp.sum(out_err[:, None, :] * w_e[:, :C, :], axis=2)
+        he = _tree_sum(out_err[:, None, :] * w_e[:, :C, :])
         is_last = epoch == (Hz - 1)
         stored = jnp.where(is_last, he, stored + he)
         state_err = jnp.where(is_last, jnp.zeros_like(state_err), state_err)
@@ -479,19 +472,19 @@ def _lstm_bptt(lst: Dict, lw: Dict, meta: Meta) -> Tuple[Dict, Dict]:
         upd_g = upd_g + errs * norm
         upd_b = upd_b + errs
         err2 = errs * gamma * ivar[:, :, None]
-        err2 = err2 - (jnp.sum(err2 * norm, axis=2, keepdims=True) / C) * norm
+        err2 = err2 - (_tree_sum(err2 * norm)[:, :, None] / C) * norm
         # hidden backprop through the hidden block of the weight rows
         # (transpose_[i][j] = weights[j][OUT+IN+i], lstm-layer.cpp:311,330-338)
         w_hid = lw["w_in"][:, :, :, ls.input_size : ls.input_size + C]  # (S,3,C,C)
-        hid_grad = jnp.einsum("sgc,sgch->sh", err2, w_hid, preferred_element_type=F32)
+        hid_grad = _tree_sum(_tree_sum(err2[..., None] * w_hid, axis=2), axis=1)
         stored_next = jnp.where(not_first, stored_next + hid_grad, stored_next)
 
         # gradient accumulation: d w[i, sym] += err_i ; d w[i, OUT+j] += err_i * input_j
         in_sym = jnp.where(epoch > 0, in_hist[:, (epoch - 1) % Hz], lst["old_input"])
         li = lst["layer_input"][:, epoch]  # (S, LI)
-        upd_in = upd_in + jnp.einsum("sgc,sl->sgcl", err2, li, preferred_element_type=F32)
+        upd_in = upd_in + err2[..., None] * li[:, None, None, :]
         onehot = jax.nn.one_hot(in_sym, OUT, dtype=F32)
-        upd_sym = upd_sym + jnp.einsum("sgc,so->sgco", err2, onehot, preferred_element_type=F32)
+        upd_sym = upd_sym + err2[..., None] * onehot[:, None, None, :]
 
         state_err = jnp.clip(state_err, -clip, clip)
         stored_next = jnp.clip(stored_next, -clip, clip)
@@ -587,25 +580,43 @@ _CODER_WIN = 40
 
 
 
-def _tree_sum(x: jnp.ndarray) -> jnp.ndarray:
-    """Sum over the LAST axis with an explicit fixed binary tree.
+def _tree_sum(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
+    """Sum over `axis` (default the last) with an explicit fixed binary tree.
 
     jnp.sum/einsum reductions let the backend pick a shape-dependent
     reduction order: XLA:CPU vectorizes a (8, n) reduce differently from a
     (1, n) reduce, so identical per-stream values summed under different
     stream-batch shapes could differ by an ulp - which avalanches through
-    the codec and breaks cross-topology archive portability. A halving tree
-    of elementwise adds pins one order for every shape and backend (zero
-    padding is exact). Used for every inexact float reduction in the
-    archive-affecting path."""
-    n = x.shape[-1]
+    the codec and breaks cross-topology archive portability. A dot is worse:
+    on a GPU, XLA times several algorithms per process and keeps the fastest
+    (and may run f32 in TF32), so an encoder and a decoder compiled in two
+    processes could disagree. A halving tree of elementwise f32 adds pins one
+    order for every shape, backend and process (zero padding is exact). It
+    is used for every inexact float reduction and contraction in the
+    archive-affecting path, which therefore holds no dot at all."""
+    axis = axis % x.ndim
+    n = x.shape[axis]
     p = 1 << max(n - 1, 0).bit_length()
     if p != n:
-        x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, p - n)])
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    return x[..., 0]
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (0, p - n)
+        x = jnp.pad(x, pad)
+    while x.shape[axis] > 1:
+        h = x.shape[axis] // 2
+        x = jax.lax.slice_in_dim(x, 0, h, axis=axis) + jax.lax.slice_in_dim(x, h, 2 * h, axis=axis)
+    return jnp.squeeze(x, axis)
+
+
+def _onehot_row(oh: jnp.ndarray, tbl: jnp.ndarray) -> jnp.ndarray:
+    """(S, T) one-hot x (S, T, W) f32 table -> the selected (S, W) row, as
+    an exact bit copy. The selection runs on the u32 view: a float sum would
+    flush denormal bit patterns to zero on a backend that runs with
+    flush-to-zero (XLA:CPU does, a GPU need not), and the steps lane of a
+    mixer row holds a bitcast u32 counter, which reads as a denormal float
+    below 2^23 updates."""
+    bits = jax.lax.bitcast_convert_type(tbl, U32)
+    sel = jnp.sum(jnp.where(oh[:, :, None], bits, U32(0)), axis=1, dtype=U32)
+    return jax.lax.bitcast_convert_type(sel, F32)
 
 
 def _tri_solve(Lmat: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
@@ -616,21 +627,18 @@ def _tri_solve(Lmat: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
 
     A is strictly lower triangular, hence nilpotent (A^n = 0), so
     (I-A)^{-1} = (I+A)(I+A^2)(I+A^4)... exactly — log2(n) tiny batched
-    matmuls on the MXU. This replaces lax.linalg.triangular_solve, whose
-    per-bit custom-call overhead (~28us for a 24x24 solve) dominated the
-    mixer forward pass.
+    products instead of an n-step sequential chain or a per-bit
+    triangular-solve custom call.
     """
     n = Lmat.shape[-1]
     if n <= 1:
         return d
     A = jnp.tril(Lmat, k=-1)
-    # matvecs as fixed-tree sums (batch-shape-invariant, see _tree_sum); the
-    # A@A matmats keep einsum - their operands are tiny and the residual
-    # reassociation risk is documented at the _tree_sum docstring
+    # matvecs and the A@A products as fixed-tree sums (see _tree_sum)
     y = d + _tree_sum(A * d[:, None, :])
     cover = 2  # y now includes A^0..A^(cover-1) d
     while cover < n:
-        A = jnp.einsum("sij,sjk->sik", A, A, preferred_element_type=F32)
+        A = _tree_sum(A[:, :, :, None] * A[:, None, :, :], axis=2)
         y = y + _tree_sum(A * y[:, None, :])
         cover *= 2
     return y
@@ -662,10 +670,10 @@ def _byte_step(
     and scattered back once at byte end — contiguous-row traffic instead of
     per-bit element scatters (see core/meta.py layout notes).
 
-    bit_scan=False statically unrolls the 8 sub-steps (TPU: best runtime);
-    bit_scan=True runs them as a lax.scan over one shared body (CPU/tests:
-    ~8x smaller graph, feasible cold-cache compiles). Both instantiate the
-    SAME sub-step code, so their semantics cannot diverge.
+    bit_scan=False statically unrolls the 8 sub-steps; bit_scan=True runs
+    them as a lax.scan over one shared body (~8x smaller graph, fast
+    cold-cache compiles). Both instantiate the SAME sub-step code, so their
+    semantics cannot diverge (default_bit_scan picks one per backend).
     """
     spec = meta.spec
     S = stm["bits_seen"].shape[0]
@@ -709,7 +717,7 @@ def _byte_step(
     # hash-derived lane rotation: lane = (bit_ctx + rot) & 255 with rot taken
     # from hash bits above the block index. Two contexts colliding on a block
     # then overlap in a DERANGED lane mapping instead of lane-for-lane - the
-    # TPU-native equivalent of the reference's (1<<tb)*256+1 table size, whose
+    # block layout's equivalent of the reference's (1<<tb)*256+1 table size, whose
     # non-power-of-2 modulus breaks byte-context collision alignment
     # (indirect.cpp:15-19). Contexts narrower than 2^16 (raw byte contexts)
     # get rot=0, keeping their exact tables exact.
@@ -745,9 +753,7 @@ def _byte_step(
         val = _iar(ctx_byte[:, int(meta.mix_cd_slots[i])] & U32(T - 1))
         oh = jnp.arange(T)[None, :] == val[:, None]  # (S, T)
         cd_oh.append(oh)
-        rows_cd_l.append(
-            jnp.sum(jnp.where(oh[:, :, None], dense0[:, off : off + T], F32(0.0)), axis=1)
-        )
+        rows_cd_l.append(_onehot_row(oh, dense0[:, off : off + T]))
     rows_cd = jnp.stack(rows_cd_l, axis=1) if Kcd else jnp.zeros((S, 0, WP), F32)
     blocks_pd = (
         jnp.stack(
@@ -785,9 +791,8 @@ def _byte_step(
     win_lanes = U32(np.arange(_CODER_WIN))
     look = _iar(rpos0[:, None] + win_lanes[None, :])
     # decoder input window via 11 u32-WORD element gathers instead of 40
-    # byte gathers (element gathers serialize at ~10 ns each on the scalar
-    # core; code_words is the once-per-chunk u32 view of code_buf, which is
-    # read-only inside the scan)
+    # byte gathers (code_words is the once-per-chunk u32 view of code_buf,
+    # which is read-only inside the scan)
     nwords = code_words.shape[1]
     w_ix = (rpos0 >> U32(2))[:, None] + U32(np.arange(_CODER_WIN // 4 + 1))[None, :]
     words = jnp.where(
@@ -809,15 +814,15 @@ def _byte_step(
     win_r = jnp.where(look < cap_total, (sel_words >> shf) & U32(255), U32(0))
 
     # ---- 8 bit sub-steps: ONE body, two instantiations ----
-    # j is either a python int (TPU: statically unrolled, j-dependent selects
-    # fold away) or a traced uint32 (CPU/tests: lax.scan over the 8 bits — an
-    # ~8x smaller HLO graph, which is what makes cold-cache CPU compiles of
-    # the full byte step feasible on small hosts).
+    # j is either a python int (statically unrolled, j-dependent selects
+    # fold away) or a traced uint32 (lax.scan over the 8 bits — an ~8x
+    # smaller HLO graph, which is what makes cold-cache CPU compiles of the
+    # full byte step feasible on small hosts).
     #
     # DEFERRED TABLE WRITES: the per-bit updates of the (S, *, 256) working
     # sets (indirect blocks, state->logit tables, match tables) are NOT
-    # applied per bit — a full dense rewrite of those arrays 8x per byte was
-    # ~190us/byte of pure HBM traffic at S=64. Instead each bit records
+    # applied per bit — that would be a full dense rewrite of those arrays
+    # 8x per byte in device memory. Instead each bit records
     # (slot, delta) into an (S, *, 8) stack; reads are corrected in registers
     # against earlier same-slot deltas (for the indirect blocks not even
     # that: each bit touches a provably distinct lane, since bit_ctx values
@@ -844,10 +849,7 @@ def _byte_step(
     if spec.apm:
         carry["apm_rows"] = apm_rows0
     if learn:
-        # stack layout is (S, 8, width): a minor dim of 8 relegates the
-        # arrays (and the whole integer chain feeding them) to TPU scalar
-        # memory - measured 16 x ~40us/byte of serialized scalar-core work
-        # at S=128 before the flip (round-4 profile)
+        # stack layout is (S, 8, width): the wide model axis stays minor
         carry["ib_lane"] = jnp.full((S, 8, M), -1, I32)
         carry["ib_del"] = jnp.zeros((S, 8, M), I32)
         carry["pt_slot"] = jnp.full((S, 8, M2), -1, I32)
@@ -1018,19 +1020,17 @@ def _byte_step(
                 T = lm_tbls[i].shape[1]
                 oh = jnp.arange(T)[None, :] == _iar(longest)[:, None]  # (S, T)
                 lm_ohs.append(oh)
-                lm_rows.append(
-                    jnp.sum(jnp.where(oh[:, :, None], lm_tbls[i], F32(0.0)), axis=1)
-                )
+                lm_rows.append(_onehot_row(oh, lm_tbls[i]))
             parts.append(jnp.stack(lm_rows, axis=1))
         rows = jnp.concatenate(parts, axis=1)[:, jnp.asarray(meta.mix_perm)]
         stepv = jax.lax.bitcast_convert_type(rows[:, :, SL], U32)  # (S, K)
         # forward view with the bitcast steps lane zeroed: once a counter's bit
         # pattern reaches 0x7F800000 (~2.1e9 updates) the lane reads as inf/NaN
-        # and inf*0 in the einsums would NaN-poison every prediction.
+        # and inf*0 in the mixer products would NaN-poison every prediction.
         # (a lane-mask SELECT, not .at[...].set: a dynamic-update-slice here
-        # materializes a full (S, K, WP) copy per sub-step - ~23.5us each at
-        # S=128 in the round-4 profile. A multiply-by-zero would instead
-        # propagate the NaN the zeroing exists to suppress.)
+        # can materialize a full (S, K, WP) copy per sub-step. A
+        # multiply-by-zero would instead propagate the NaN the zeroing exists
+        # to suppress.)
         sl_is = (jnp.arange(WP) == SL)[None, None, :]
         rows_f = jnp.where(sl_is, F32(0.0), rows)
 
@@ -1191,9 +1191,7 @@ def _byte_step(
             # state advance: ns half via the nonstationary table, rm half via
             # the run-map table (256x2 next tables). The lookup rides the
             # ALREADY-COMPUTED one-hot eq_state as a vectorized lane
-            # reduction: a jnp.take with (S, M) indices serializes on the
-            # TPU scalar core (~8 ns/index - measured 16 x ~40us/byte at
-            # S=128, the single largest block of the round-4 profile).
+            # reduction instead of a jnp.take with (S, M) indices.
             ns0 = jnp.asarray(_NS_NEXT[0::2], I32)[None, None, :]  # next on bit 0
             ns1 = jnp.asarray(_NS_NEXT[1::2], I32)[None, None, :]
             rm0 = jnp.asarray(_RM_NEXT[0::2], I32)[None, None, :]
@@ -1315,164 +1313,54 @@ def _byte_step(
             max_steps=max_steps,
         )
 
-    if use_fused(meta) and not bit_scan and sample_u is None:
-        # ---- fused Pallas path: the whole 8-sub-step loop (and the deferred
-        # write application) runs as ONE kernel with every working set
-        # VMEM-resident; expressions identical to sub_step (core/fused.py).
-        # Everything before (gathers) and after (scatters, byte-end) is
-        # unchanged XLA. ----
-        from .fused import call_fused
-
-        fin = {
-            "sc": jnp.stack(
-                [
-                    data_byte,
-                    stm["last_byte"],
-                    stm["recent"][:, 1],
-                    jnp.broadcast_to(decode.astype(U32), (S,)),
-                    jnp.broadcast_to((t > 0).astype(U32), (S,)),
-                    jnp.zeros((S,), U32),
-                    jnp.zeros((S,), U32),
-                    jnp.zeros((S,), U32),
-                ],
-                axis=1,
-            ),
-            "coder": jnp.stack(
-                [coder["x1"], coder["x2"], coder["x"], coder["wpos"],
-                 coder["rpos"], stm["acc"], stm["bits_seen"], stm["new_bit"]],
-                axis=1,
-            ),
-            "win_r": jnp.pad(win_r, ((0, 0), (0, 64 - _CODER_WIN))),
-            "ent": metrics["ent"][:, None],
-            "max_steps": max_steps,
-        }
-        if M:
-            fin["ind_blk"] = ind_blk.astype(I32)
-            fin["ind_rot"] = ind_rot
-            fin["p_tbl"] = p_tbl
-        if Kst:
-            fin["rows_st"] = rows_stable
-        if Kp:
-            fin["rows_pos"] = rows_pos.reshape(S, Kp * 8, WP)
-        if Kcd:
-            fin["rows_cd"] = rows_cd
-        if Kpd:
-            fin["blocks_pd"] = blocks_pd.reshape(S, Kpd * 8, WP)
-        if Klm:
-            fin["lm_tbl"] = jnp.concatenate(lm_tbls, axis=1)
-        if spec.apm:
-            fin["apm_rows"] = apm_rows0
-        if spec.ppm is not None:
-            fin["ppm_probs"] = stm["ppm_probs"]
-            fin["ppm_regs"] = jnp.stack(
-                [stm["ppm_top"], stm["ppm_bot"], stm["ppm_mid"],
-                 jnp.zeros((S,), I32)], axis=1)
-        if spec.lstm is not None:
-            fin["lstm_probs"] = stm["lstm"]["probs"]
-            fin["lstm_regs"] = jnp.stack(
-                [stm["lstm"]["top"], stm["lstm"]["bot"], stm["lstm"]["mid"],
-                 jnp.zeros((S,), I32)], axis=1)
-        if spec.matches:
-            fin["match_len"] = stm["match_len"]
-            fin["match_byte"] = stm["match_byte"]
-            fin["mt_pred"] = mt_pred
-            fin["mt_cnt"] = mt_cnt
-        if analysis:
-            fin["ema"] = metrics["ema"]
-
-        fo = call_fused(spec, learn, analysis, S, fin)
-
-        co = fo["coder"]
-        coder = {"x1": co[:, 0], "x2": co[:, 1], "x": co[:, 2],
-                 "wpos": co[:, 3], "rpos": co[:, 4]}
-        stm = _set(stm, acc=co[:, 5], bits_seen=co[:, 6], new_bit=co[:, 7])
-        metrics = _set(metrics, ent=fo["ent"][:, 0])
-        if analysis:
-            metrics = _set(metrics, ema=fo["ema"])
-        bitregs = fo["bitregs"][:, :4]
-        if spec.ppm is not None:
-            pr = fo["ppm_regs"]
-            stm = _set(stm, ppm_top=pr[:, 0], ppm_bot=pr[:, 1], ppm_mid=pr[:, 2])
-        if spec.lstm is not None:
-            lr_ = fo["lstm_regs"]
-            stm = _set(stm, lstm=_set(stm["lstm"], top=lr_[:, 0], bot=lr_[:, 1], mid=lr_[:, 2]))
-        if spec.matches:
-            stm = _set(stm, match_len=fo["match_len"])
-        if learn:
-            if M:
-                ind_blk = fo["ind_blk"].astype(jnp.uint16)
-                p_tbl = fo["p_tbl"]
-            if Kst:
-                rows_stable = fo["rows_st"]
-            if Kp:
-                rows_pos = fo["rows_pos"].reshape(S, Kp, 8, WP)
-            if Kcd:
-                rows_cd = fo["rows_cd"]
-            if Kpd:
-                blocks_pd = fo["blocks_pd"].reshape(S, Kpd, 8, WP)
-            if Klm:
-                lm_all = fo["lm_tbl"]
-                offs = np.concatenate([[0], np.cumsum(np.asarray(meta.mix_lm_sizes))]).astype(int)
-                lm_tbls = tuple(lm_all[:, offs[i] : offs[i + 1]] for i in range(Klm))
-            max_steps = fo["max_steps"]
-            if spec.matches:
-                mt_pred, mt_cnt = fo["mt_pred"], fo["mt_cnt"]
-            if spec.apm:
-                apm_rows_final = fo["apm_rows"]
-        win_w_final = fo["win_w"][:, :_CODER_WIN]
-        cur_byte = stm["acc"]
-        longest = bitregs[:, 3].astype(U32)
+    if bit_scan:
+        carry, _ = jax.lax.scan(
+            lambda c, jj: (sub_step(c, jj), None),
+            carry,
+            jnp.arange(8, dtype=U32),
+        )
     else:
-        if bit_scan:
-            carry, _ = jax.lax.scan(
-                lambda c, jj: (sub_step(c, jj), None),
-                carry,
-                jnp.arange(8, dtype=U32),
-            )
-        else:
-            for j in range(8):
-                carry = sub_step(carry, j)
-        stm, coder, metrics = carry["stm"], carry["coder"], carry["metrics"]
-        rows_stable = carry["rows_stable"]
-        rows_pos, rows_cd = carry["rows_pos"], carry["rows_cd"]
-        blocks_pd, lm_tbls = carry["blocks_pd"], carry["lm_tbls"]
-        max_steps = carry["max_steps"]
-        cur_byte = stm["acc"]  # all 8 bits accumulated = the completed byte
-        bitregs = carry["bitregs"]
-        longest = bitregs[:, 3]
-        if spec.apm and learn:
-            apm_rows_final = carry["apm_rows"]
-        win_w_final = carry["win_w"]
+        for j in range(8):
+            carry = sub_step(carry, j)
+    stm, coder, metrics = carry["stm"], carry["coder"], carry["metrics"]
+    rows_stable = carry["rows_stable"]
+    rows_pos, rows_cd = carry["rows_pos"], carry["rows_cd"]
+    blocks_pd, lm_tbls = carry["blocks_pd"], carry["lm_tbls"]
+    max_steps = carry["max_steps"]
+    cur_byte = stm["acc"]  # all 8 bits accumulated = the completed byte
+    bitregs = carry["bitregs"]
+    longest = bitregs[:, 3]
+    if spec.apm and learn:
+        apm_rows_final = carry["apm_rows"]
+    win_w_final = carry["win_w"]
 
-        # ---- apply the deferred per-bit table writes: ONE dense pass per
-        # array per byte instead of 8 (see the carry comment above); the
-        # j-sum fuses into a single elementwise kernel over each (S, *, 256)
-        # array ----
-        if learn:
-            ib = ind_blk.astype(I32)
-            pt = p_tbl
+    # ---- apply the deferred per-bit table writes: ONE dense pass per
+    # array per byte instead of 8 (see the carry comment above); the
+    # j-sum fuses into a single elementwise kernel over each (S, *, 256)
+    # array ----
+    if learn:
+        ib = ind_blk.astype(I32)
+        pt = p_tbl
+        for jj in range(8):
+            ib = ib + carry["ib_del"][:, jj, :, None] * (
+                lane_i == carry["ib_lane"][:, jj, :, None]
+            )
+            pt = pt + carry["pt_del"][:, jj, :, None] * (
+                lane_i == carry["pt_slot"][:, jj, :, None]
+            )
+        ind_blk = ib.astype(jnp.uint16)
+        p_tbl = pt
+        if spec.matches:
+            mtp, mtc = mt_pred, mt_cnt
             for jj in range(8):
-                ib = ib + carry["ib_del"][:, jj, :, None] * (
-                    lane_i == carry["ib_lane"][:, jj, :, None]
-                )
-                pt = pt + carry["pt_del"][:, jj, :, None] * (
-                    lane_i == carry["pt_slot"][:, jj, :, None]
-                )
-            ind_blk = ib.astype(jnp.uint16)
-            p_tbl = pt
-            if spec.matches:
-                mtp, mtc = mt_pred, mt_cnt
-                for jj in range(8):
-                    eq = lane_i == carry["mp_slot"][:, jj, :, None]
-                    mtp = mtp + carry["mp_del"][:, jj, :, None] * eq
-                    mtc = mtc + carry["mc_del"][:, jj, :, None] * eq
-                mt_pred, mt_cnt = mtp, mtc
+                eq = lane_i == carry["mp_slot"][:, jj, :, None]
+                mtp = mtp + carry["mp_del"][:, jj, :, None] * eq
+                mtc = mtc + carry["mc_del"][:, jj, :, None] * eq
+            mt_pred, mt_cnt = mtp, mtc
 
     # ---- coder window emit: the renorm bytes of this input byte leave the
-    # program as scan OUTPUTS (a dense per-byte write) instead of a scatter
-    # into code_buf — the (S, 40) element scatter cost ~98 ns/element on the
-    # scalar core (tools/tpu_scatter_width_bench.py), the single largest row
-    # block of the old step. The host assembles the byte stream from
+    # program as scan OUTPUTS (a dense per-byte write) instead of an (S, 40)
+    # element scatter into code_buf. The host assembles the byte stream from
     # (win, nw) per byte (codec.run_chunks); encode can no longer overflow a
     # device buffer, so the old sticky-overflow flag is gone. Decode emits
     # zeros (ignored). ----
@@ -1701,16 +1589,12 @@ def make_gen_chunk_fn(meta: Meta, chunk: int, bit_scan: bool = False):
 
 
 def default_bit_scan() -> bool:
-    """Unrolled sub-steps on TPU (best runtime); scanned sub-steps elsewhere
-    (the ~8x smaller graph keeps cold-cache CPU compiles tractable).
-    GMIX_BIT_SCAN=0/1 overrides (e.g. to trade TPU runtime for an ~8x
-    smaller graph on one-off quality runs where compile time dominates)."""
-    env = os.environ.get("GMIX_BIT_SCAN")
-    if env is not None:
-        return env == "1"
-    if os.environ.get("GMIX_FUSED") == "1":
-        return False  # the fused kernel replaces the unrolled sub-steps
-    return jax.default_backend() != "tpu"
+    """Scanned sub-steps on the CPU (the ~8x smaller graph keeps cold-cache
+    compiles of the tests tractable), unrolled on an accelerator. On an H100
+    (best profile, 4 streams, chunk 1000) the unrolled form ran at 1657
+    us/byte against 2093 for the scanned one, for 94 s of compile against
+    33 s."""
+    return jax.default_backend() == "cpu"
 
 
 @functools.lru_cache(maxsize=64)

@@ -9,16 +9,18 @@ indirect-hash context (src/contexts/indirect-hash.cpp:28).
 
 Because key sizes are static we specialise the two cases to pure uint32
 arithmetic (no byte loops), which vectorises across streams and across context
-instances in one fused VPU op.
+instances in one fused elementwise op.
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
 SEED = 0xDEADBEEF
 
-_C1 = jnp.uint32(0xCC9E2D51)
-_C2 = jnp.uint32(0x1B873593)
+# NumPy scalars, so that importing the module starts no JAX backend
+_C1 = np.uint32(0xCC9E2D51)
+_C2 = np.uint32(0x1B873593)
 
 
 def _u32(x) -> jnp.ndarray:

@@ -1,177 +1,26 @@
 """Batched arena-row movers: gather/scatter rows of (S, N, W) tables.
 
-The codec step moves ~260 rows per stream per byte between the HBM arenas and
-per-byte registers (indirect blocks, mixer weight rows, PPM count rows  - see
-core/step.py). XLA lowers an (S, M)-indexed row scatter to a serialized
-per-row store loop plus index-preprocessing fusions; at S=64 the profiler
-shows those scatters running at ~6 GB/s (85 ns/row) against gathers at
-~85 GB/s, and together they dominate the whole step (VERDICT round-2 ask #3).
-
-On TPU these movers are Pallas kernels that keep a ring of row DMAs in
-flight: descriptors issue back-to-back and the copies overlap, instead of the
-store-by-store serialization XLA emits. Everything is pure memory movement -
-no float math - so the TPU kernels and the XLA fallback (used on CPU, and by
-the test suite) are bit-identical by construction.
+The codec step moves ~260 rows per stream per byte between the model arenas
+and its per-byte working registers (indirect blocks, mixer weight rows, PPM
+count rows - see core/step.py). Both movers are XLA's own indexed gather and
+scatter; everything is pure memory movement, with no float math.
 
 Row indices must be unique within a stream (each model family owns a disjoint
-offset range of its arena - meta.py builds them that way), matching the
-`unique_indices=True` contract of the XLA path.
+offset range of its arena - meta.py builds them that way), which is the
+`unique_indices=True` contract of the scatter.
 """
 from __future__ import annotations
 
-import functools
-from typing import Sequence
-
-import jax
 import jax.numpy as jnp
-
-_RING = 16  # row DMAs kept in flight per arena
-
-
-def _use_pallas() -> bool:
-    # MEASURED NEGATIVE RESULT (tools/tpu_dma_bench.py on v5e): the DMA ring
-    # does NOT beat XLA's serialized scatter loop - descriptor issue is
-    # scalar-core-bound either way (~85 ns/row in-program for XLA scatters,
-    # ~300 ns/row for the ring incl. index math), and gathers already hit the
-    # fast vectorized path (~11 ns/row). The ring kernels are kept behind
-    # this env flag as the measurement harness; the XLA forms are the default
-    # production path.
-    import os
-
-    return os.environ.get("GMIX_ROWMOVE_PALLAS", "0") == "1" and jax.default_backend() == "tpu"
-
-
-# ---------------------------------------------------------------------------
-# XLA fallback (CPU / tests): plain indexed gather / unique scatter
-# ---------------------------------------------------------------------------
-
-
-def _xla_gather(tbl: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    s_ix = jnp.arange(tbl.shape[0])[:, None]
-    return tbl[s_ix, idx]
-
-
-def _xla_scatter(tbl: jnp.ndarray, idx: jnp.ndarray, upd: jnp.ndarray) -> jnp.ndarray:
-    s_ix = jnp.arange(tbl.shape[0])[:, None]
-    return tbl.at[s_ix, idx].set(upd, unique_indices=True)
-
-
-# ---------------------------------------------------------------------------
-# Pallas DMA-ring kernels
-# ---------------------------------------------------------------------------
-
-
-def _ring_loop(total: int, dma):
-    """Ring driver: step i waits the copy that used semaphore slot i%_RING,
-    then starts copy i; descriptors are rebuilt to wait (standard Mosaic
-    pattern - a descriptor is (src, dst, sem), so rebuilding is exact)."""
-    from jax.experimental import pallas as pl
-
-    def body(i, carry):
-        @pl.when(i >= _RING)
-        def _():
-            dma(i - _RING).wait()
-
-        @pl.when(i < total)
-        def _():
-            dma(i).start()
-
-        return carry
-
-    jax.lax.fori_loop(0, total + _RING, body, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _pallas_gather_fn(S: int, N: int, M: int, W: int, dtype_name: str):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    dtype = jnp.dtype(dtype_name)
-
-    def kernel(idx_ref, tbl_ref, out_ref, sems):
-        def dma(i):
-            s = i // M
-            m = i % M
-            return pltpu.make_async_copy(
-                tbl_ref.at[s, idx_ref[s, m]], out_ref.at[s, m], sems.at[i % _RING]
-            )
-
-        _ring_loop(S * M, dma)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(1,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((_RING,))],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((S, M, W), dtype),
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _pallas_scatter_fn(S: int, N: int, M: int, W: int, dtype_name: str):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    dtype = jnp.dtype(dtype_name)
-
-    def kernel(idx_ref, upd_ref, tbl_ref, out_ref, sems):
-        # out_ref is the SAME buffer as tbl_ref (input_output_aliases), so
-        # rows not written keep their old content
-        del tbl_ref
-
-        def dma(i):
-            s = i // M
-            m = i % M
-            return pltpu.make_async_copy(
-                upd_ref.at[s, m], out_ref.at[s, idx_ref[s, m]], sems.at[i % _RING]
-            )
-
-        _ring_loop(S * M, dma)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.ANY),  # updates
-            pl.BlockSpec(memory_space=pltpu.ANY),  # table (aliased to output)
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((_RING,))],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((S, N, W), dtype),
-        # operand order as passed: (idx[prefetch], upd, tbl); tbl aliases out
-        input_output_aliases={2: 0},
-    )
-
-
-# ---------------------------------------------------------------------------
-# public API
-# ---------------------------------------------------------------------------
 
 
 def gather_rows(tbl: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """(S, N, W)[s, idx[s, m]] -> (S, M, W)."""
-    S, N, W = tbl.shape
-    M = idx.shape[1]
-    if not _use_pallas():
-        return _xla_gather(tbl, idx)
-    fn = _pallas_gather_fn(S, N, M, W, tbl.dtype.name)
-    return fn(idx.astype(jnp.int32), tbl)
+    s_ix = jnp.arange(tbl.shape[0])[:, None]
+    return tbl[s_ix, idx]
 
 
 def scatter_rows(tbl: jnp.ndarray, idx: jnp.ndarray, upd: jnp.ndarray) -> jnp.ndarray:
     """tbl[s, idx[s, m]] = upd[s, m]; idx unique per stream. Returns tbl."""
-    S, N, W = tbl.shape
-    M = idx.shape[1]
-    if not _use_pallas():
-        return _xla_scatter(tbl, idx, upd)
-    fn = _pallas_scatter_fn(S, N, M, W, tbl.dtype.name)
-    return fn(idx.astype(jnp.int32), upd, tbl)
+    s_ix = jnp.arange(tbl.shape[0])[:, None]
+    return tbl.at[s_ix, idx].set(upd, unique_indices=True)

@@ -5,10 +5,10 @@ probability to [1e-4, 1-1e-4] before log-odds; Logistic is the plain sigmoid.
 The final predictor output is additionally clamped to the same range
 (src/predictor.cpp:370-375).
 
-DETERMINISM BY CONSTRUCTION (round 5): every transcendental here is built
+DETERMINISM BY CONSTRUCTION: every transcendental here is built
 from IEEE-exact primitives only (+, *, /, floor, compares, integer bit ops),
 via explicit polynomials. Backend transcendental kernels (XLA:CPU libm vs
-SIMD polynomials, XLA:TPU VPU approximations) round differently depending on
+SIMD polynomials, GPU fast-math approximations) round differently depending on
 array SHAPE: a (1,)-shaped jnp.log takes the scalar libm path while a
 (8,)-shaped one takes an 8-wide SIMD path, so the same per-stream computation
 produced different floats at different stream-batch sizes. That broke
@@ -21,8 +21,7 @@ program was already structural (one compiled program serves both modes);
 this extends it to bit-exactness ACROSS program shapes.
 
 All constants are PYTHON literals, not jnp scalars: weak typing rounds them
-to f32 identically, and Pallas kernels cannot capture jnp constants - these
-functions run unchanged inside the fused TPU kernel (core/fused.py).
+to f32 identically, and importing the module creates no device array.
 
 All math is float32. Accuracy vs libm: |rel err| < ~3e-7 for exp/log in the
 used ranges - indistinguishable at the codec's 16-bit probability

@@ -1,22 +1,21 @@
-"""Multi-host execution: jax.distributed + a global device mesh over DCN.
+"""Multi-host execution: jax.distributed + a global device mesh.
 
 The reference has no communication backend at all (SURVEY.md 2/5 - it is a
-single CPU thread); this is the TPU-native scale-out layer. The model is
+single CPU thread); this is the codec's scale-out layer. The model is
 unchanged from the single-host case: streams are the data-parallel axis, each
 device owns S/n_devices independent codec replicas, and the per-byte scan
 contains no cross-stream operation. Multi-host therefore needs exactly three
 pieces, all here:
 
-1. `initialize()` - `jax.distributed.initialize` wrapper. On TPU pods the
-   coordinator/process topology is autodetected; on CPU (tests, dev boxes)
-   the caller passes coordinator/num_processes/process_id explicitly.
+1. `initialize()` - `jax.distributed.initialize` wrapper; the caller passes
+   coordinator/num_processes/process_id explicitly.
 2. Global-array construction: every process holds only its local shard of the
    state/data/code buffers; `_global_from_callback` builds the jax global
    arrays shard-by-shard (no process ever materialises another host's GBs of
    table state - callbacks produce only addressable shards).
 3. Ordered gather of the variable-length per-stream payloads into ONE
    container, byte-identical to the single-process archive: stream payloads
-   ride a replicating jit (ICI/DCN all-gather inserted by XLA) and the host
+   ride a replicating jit (an all-gather inserted by XLA) and the host
    container writer concatenates them in stream order, generalising the
    reference's 5-byte length framing (src/runner/runner-utils.cpp:22-36).
 
@@ -27,21 +26,13 @@ asserted by tests/test_multihost.py with 2 spawned processes.
 from __future__ import annotations
 
 import struct
-from typing import Dict, Optional
 
 import numpy as np
 
 
-def initialize(
-    coordinator_address: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
-) -> None:
-    """Join (or autodetect) the distributed runtime. Call before any jax op.
-
-    TPU pods: bare `initialize()` autodetects everything from the TPU
-    environment. CPU/manual: pass all three arguments.
-    """
+def initialize(coordinator_address: str, num_processes: int, process_id: int) -> None:
+    """Join the distributed runtime. Call before any jax op, with all three
+    arguments (coordinator as `host:port`)."""
     import jax
 
     jax.distributed.initialize(coordinator_address, num_processes, process_id)
@@ -102,8 +93,8 @@ def make_global_state(meta, S: int, mesh, axis: str = "streams", seed=None):
 
 
 def _replicate(mesh, tree):
-    """Gather a stream-sharded pytree to every process (XLA all-gather over
-    ICI/DCN) and return it as host numpy."""
+    """Gather a stream-sharded pytree to every process (an XLA all-gather)
+    and return it as host numpy."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 

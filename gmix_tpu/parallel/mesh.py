@@ -1,7 +1,7 @@
 """Multi-device execution: data-parallel stream sharding over a jax Mesh.
 
 The reference is single-threaded (SURVEY.md 2, parallelism inventory); the
-TPU-native scaling axis is the stream dimension: every state array, the data
+codec's scaling axis is the stream dimension: every state array, the data
 buffer, and the code buffer carry streams on axis 0, and the per-byte scan has
 no cross-stream operations, so sharding axis 0 over a mesh makes the whole
 codec embarrassingly data-parallel - XLA inserts zero collectives in the scan.
@@ -14,6 +14,7 @@ gathered in stream order by the container writer.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import jax
@@ -60,6 +61,16 @@ def _state_specs(meta, S: int, axis: str):
     )
 
 
+def collectives(compiled) -> list:
+    """Names of the cross-device collectives in a compiled program. The
+    stream-sharded chunk program must hold none: any would mean the
+    partitioner inserted cross-stream communication into the per-byte scan."""
+    return sorted(set(re.findall(
+        r"all-reduce|all-gather|collective-permute|reduce-scatter|all-to-all",
+        compiled.as_text(),
+    )))
+
+
 def make_sharded_chunk_fn(
     meta, chunk: int, mesh: Mesh, S: int,
     learn: bool = True, bit_scan: bool = False, axis: str = "streams",
@@ -77,20 +88,18 @@ def make_sharded_chunk_fn(
     its local block, which is also the strongest determinism statement
     available: identical per-shard programs => identical bytes.
     """
-    from jax.experimental.shard_map import shard_map
-
     from ..core.step import make_chunk_fn_raw
 
     raw = make_chunk_fn_raw(meta, chunk, learn, bit_scan)
     st_specs = _state_specs(meta, S, axis)
-    fn = shard_map(
+    fn = jax.shard_map(
         raw,
         mesh=mesh,
         in_specs=(st_specs, P(axis), P(axis), P(), P()),
         # (state, data, code, win, nw): the coder scan outputs carry the
         # stream axis second (chunk-major)
         out_specs=(st_specs, P(axis), P(axis), P(None, axis), P(None, axis)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn, donate_argnums=(0, 1, 2))
 
@@ -99,18 +108,16 @@ def make_sharded_gen_fn(
     meta, chunk: int, mesh: Mesh, S: int, bit_scan: bool = False, axis: str = "streams"
 ):
     """shard_map'd generation chunk (see make_sharded_chunk_fn)."""
-    from jax.experimental.shard_map import shard_map
-
     from ..core.step import make_gen_chunk_fn_raw
 
     raw = make_gen_chunk_fn_raw(meta, chunk, bit_scan)
     st_specs = _state_specs(meta, S, axis)
-    fn = shard_map(
+    fn = jax.shard_map(
         raw,
         mesh=mesh,
         in_specs=(st_specs, P(axis), P(), P(None, axis), P()),
         out_specs=(st_specs, P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn, donate_argnums=(0, 1))
 

@@ -76,8 +76,8 @@ def init_state(meta: Meta, num_streams: int, seed: int = DEFAULT_SEED) -> Dict:
         ltm["mix_w"] = jnp.zeros((S, meta.mix_total_rows, WP), f32)
     if meta.mix_pos_groups:
         # FLAT wide rows (8*WP lanes): gathered/scattered as-is; reshaping a
-        # (G, 8, WP) arena to (G, 8*WP) per byte would relayout-copy the
-        # whole arena every byte on TPU
+        # (G, 8, WP) arena to (G, 8*WP) per byte could relayout-copy the
+        # whole arena every byte
         ltm["mix_pos"] = jnp.zeros((S, meta.mix_pos_groups, 8 * WP), f32)
     if meta.mix_dense_total:
         ltm["mix_dense"] = jnp.zeros((S, meta.mix_dense_total, WP), f32)

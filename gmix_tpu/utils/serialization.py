@@ -8,7 +8,7 @@ in-memory copy must equal a disk roundtrip.
 
 Layout: keys are '/'-joined pytree paths; dtypes and shapes are preserved
 exactly. Values are raw numpy arrays, so the checkpoint is portable between
-CPU and TPU backends.
+backends (CPU and GPU).
 
 Sparse encoding (the reference switches to key/value encoding when its tables
 are mostly empty, src/memory/long-term-memory.cpp:17-28, 92-103): any large

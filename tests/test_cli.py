@@ -2,7 +2,7 @@
 
 Each reference mode (-c/-d/-t/-g) plus the analysis writers is driven through
 cli.main(argv) on the tiny profile, pinning the user-facing behavior that was
-previously exercised only by hand (VERDICT r3 weak #5).
+previously exercised only by hand.
 """
 import os
 

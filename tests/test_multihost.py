@@ -3,7 +3,7 @@ devices run the distributed compression path end-to-end and must produce a
 container byte-identical to the single-process archive (stream placement can
 never change stream semantics). Exercises jax.distributed.initialize, the
 global mesh, per-shard global-array construction, the shard_map chunk program
-over DCN, and the ordered cross-host payload gather."""
+across processes, and the ordered cross-host payload gather."""
 import os
 import socket
 import subprocess

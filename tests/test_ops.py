@@ -1,5 +1,7 @@
-"""Unit tests for the low-level ops: murmur hash, state tables, coder."""
+"""Unit tests for the low-level ops: murmur hash, state tables, coder, arena
+row movers, fixed-tree sums."""
 import numpy as np
+import pytest
 
 
 def _py_murmur3_32(data: bytes, seed: int) -> int:
@@ -315,15 +317,15 @@ def test_indirect_rotation_optout_roundtrip():
 
 
 def test_quality_variant_specs_build():
-    """Every tools/tpu_quality.py variant name must build a valid spec (a
-    typo'd variant must fail at parse time, not after a 10-minute TPU
-    compile)."""
+    """Every tools/quality.py variant name must build a valid spec (a
+    typo'd variant must fail at parse time, not after a long compile on the
+    accelerator)."""
     import os
     import sys
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     try:
-        from tpu_quality import make_variant
+        from quality import make_variant
     finally:
         sys.path.pop(0)
     for name in ("ref-x4", "ref-x1", "ref-x4-noppm", "ref-x4-oldppm",
@@ -332,3 +334,60 @@ def test_quality_variant_specs_build():
         spec, S = make_variant(name)
         assert S >= 1
         spec.validate()
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+def test_gather_scatter_rows_match_numpy(dtype):
+    """gather_rows/scatter_rows against plain NumPy indexing on a (S, N, W)
+    arena, with unique row indices per stream (the movers' contract)."""
+    import jax.numpy as jnp
+
+    from gmix_tpu.ops.rowmove import gather_rows, scatter_rows
+
+    rng = np.random.default_rng(7)
+    S, N, W, M = 3, 50, 272, 9
+    tbl = rng.integers(0, 60000, (S, N, W)).astype(dtype)
+    idx = np.stack([rng.permutation(N)[:M] for _ in range(S)]).astype(np.int32)
+    upd = rng.integers(0, 60000, (S, M, W)).astype(dtype)
+
+    got = np.asarray(gather_rows(jnp.asarray(tbl), jnp.asarray(idx)))
+    assert got.dtype == dtype
+    assert np.array_equal(got, tbl[np.arange(S)[:, None], idx])
+
+    want = tbl.copy()
+    want[np.arange(S)[:, None], idx] = upd
+    got = np.asarray(scatter_rows(jnp.asarray(tbl), jnp.asarray(idx), jnp.asarray(upd)))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, -1])
+def test_tree_sum_matches_numpy_and_batch_shape(axis):
+    """_tree_sum sums over any axis (non-power-of-two lengths pad with exact
+    zeros), and a stream's sum does not depend on how many streams share the
+    batch."""
+    import jax.numpy as jnp
+
+    from gmix_tpu.core.step import _tree_sum
+
+    rng = np.random.default_rng(axis % 3)
+    x = rng.integers(-50, 50, (5, 3, 7)).astype(np.float32)  # exact in f32
+    assert np.array_equal(np.asarray(_tree_sum(jnp.asarray(x), axis=axis)), x.sum(axis=axis))
+
+    y = rng.standard_normal((6, 3, 37)).astype(np.float32)
+    full = np.asarray(_tree_sum(jnp.asarray(y)))
+    one = np.asarray(_tree_sum(jnp.asarray(y[2:3])))
+    assert np.array_equal(full[2:3], one)
+
+
+def test_onehot_row_copies_bit_patterns():
+    """The dense-row selection is an exact bit copy, denormals included."""
+    import jax.numpy as jnp
+
+    from gmix_tpu.core.step import _onehot_row
+
+    bits = np.arange(2 * 5 * 4, dtype=np.uint32).reshape(2, 5, 4) + 1  # denormal floats
+    tbl = bits.view(np.float32)
+    oh = np.zeros((2, 5), bool)
+    oh[0, 3] = oh[1, 0] = True
+    got = np.asarray(_onehot_row(jnp.asarray(oh), jnp.asarray(tbl))).view(np.uint32)
+    assert np.array_equal(got, bits[[0, 1], [3, 0]])

@@ -85,7 +85,7 @@ def test_entropy_reported():
 
 
 def test_tiny_spec_covers_all_mixer_placement_classes():
-    """Guard for VERDICT r4 weak #3: the CPU suite's invariants are only as
+    """Guard: the CPU suite's invariants are only as
     strong as tiny_spec's coverage. Every one of the five mixer placement
     classes (core/meta.py: stable / pos / ctx-dense / pos-dense / lm) must be
     populated, so roundtrip/checkpoint/copy tests exercise each arena path."""
@@ -98,3 +98,29 @@ def test_tiny_spec_covers_all_mixer_placement_classes():
         assert len(meta.mix_cd_ix) > 0, "no ctx-dense mixer"
         assert len(meta.mix_pd_ix) > 0, "no pos-dense mixer"
         assert len(meta.mix_lm_ix) > 0, "no longest_match mixer"
+
+
+def test_dense_mixer_step_counters_advance():
+    """The steps lane of a mixer row is a bitcast u32 counter, a denormal
+    float below 2^23. The dense-resident classes (ctx-dense, longest-match)
+    select their rows every byte; a backend that flushes denormals to zero
+    (XLA:CPU does) must still see the counters grow across bytes."""
+    import jax
+
+    from gmix_tpu.core.codec import Predictor, compress_bytes
+    from gmix_tpu.core.meta import build_meta
+
+    spec = g.tiny_spec(with_lstm=False)
+    meta = build_meta(spec)
+    pred = Predictor(spec, 1)
+    n = 256
+    compress_bytes(TEXT[:n], spec, 1, 128, pred=pred)
+    dense = np.asarray(jax.device_get(pred.state["ltm"]["mix_dense"]))
+    steps = dense[0, :, meta.mix_step_lane].view(np.uint32)
+    # every bit updates exactly one row of each dense-selected table, so a
+    # table's counters sum to the number of coded bits
+    tables = list(zip(meta.mix_cd_offsets, meta.mix_cd_sizes)) + list(
+        zip(meta.mix_lm_offsets, meta.mix_lm_sizes))
+    assert any(t > 1 for _, t in tables)
+    for off, t in tables:
+        assert steps[int(off):int(off) + int(t)].sum() == 8 * n, (off, t)

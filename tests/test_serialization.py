@@ -66,9 +66,9 @@ def test_unversioned_checkpoint_rejected(tmp_path):
 
 
 def test_bit_scan_instantiations_identical():
-    """The scanned (CPU default) and unrolled (TPU default) bit sub-step
-    instantiations must produce bit-identical streams and state: archives
-    written on TPU must decode on CPU. Runs eagerly - the unrolled jit
+    """The scanned (CPU default) and unrolled bit sub-step instantiations
+    must produce bit-identical streams and state: an archive written by one
+    form must decode with the other. Runs eagerly - the unrolled jit
     compile is too slow on small CI hosts."""
     import jax.numpy as jnp
 

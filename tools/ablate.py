@@ -1,6 +1,6 @@
-"""Ablate ensemble components to locate TPU per-bit latency cliffs.
+"""Ablate ensemble components to locate per-bit latency cliffs on the accelerator.
 
-Usage: python tools/tpu_ablate.py S [variant ...]
+Usage: python tools/ablate.py S [variant ...]
 Variants: full, nolstm, noppm, nomatch, noih, nomix12, indonly, mixonly
 """
 import dataclasses

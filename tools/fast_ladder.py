@@ -1,17 +1,17 @@
 """Throughput-frontier ladder: measured (encode MB/s, bpb) for trimmed
 ensembles at the bench operating point.
 
-The bench metric is MB/s at <= 2.1 bpb (VERDICT r4 ask #1's budget), so the
+The bench metric is MB/s at <= 2.1 bpb, so the
 ensemble composition at the THROUGHPUT point is an operating-point choice,
 not fixed wiring: dropping models buys per-byte latency (fewer scattered
 rows + less vector work) at a measured bpb cost, and the warm-start lever
-(tools/tpu_warm_sweep.py) buys bpb back for free at bench time. This tool
+(tools/warm_sweep.py) buys bpb back for free at bench time. This tool
 measures the frontier so the headline bench config is chosen from data.
 
 Variants (all on top of bench._spec_for's scaled profile + APM stages):
   base           unmodified
   no4sel         drop the 4 four-byte-selector skip indirects (sparse, the
-                 round-3 EMA table's weakest columns)
+                 weakest columns of the entropy-EMA table)
   noskipind      drop all 15 skip-pattern indirect models (their contexts
                  stay: mixers gate on them)
   noih           drop the 9 double-indirect models (their IndirectHash
@@ -20,11 +20,11 @@ Variants (all on top of bench._spec_for's scaled profile + APM stages):
   noskipind-noih combined
   lean           noskipind + noih + nolstm
 Usage:
-  python tools/tpu_fast_ladder.py VARIANT[@BITSxS] ...
+  python tools/fast_ladder.py VARIANT[@BITSxS] ...
 Env: GMIX_FAST_BYTES (default 1<<22), GMIX_FAST_CHUNK (4000),
      GMIX_FAST_WARM (default 131072) - pretrain prefix for the broadcast
      warm start (offline, excluded from MB/s).
-Results append to data/parity.json under "fast_ladder".
+Results append to analysis/parity.json under "fast_ladder".
 """
 import dataclasses
 import json
@@ -34,9 +34,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PARITY = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "parity.json"
-)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# measurement records (gitignored): read-modify-written, one key per tool
+PARITY = os.path.join(REPO, "analysis", "parity.json")
 
 
 def _record(entry: dict) -> None:
@@ -49,9 +49,10 @@ def _record(entry: dict) -> None:
     lad = merged.get("fast_ladder")
     if not isinstance(lad, list):
         lad = []
-    key = (entry.get("variant"), entry.get("profile"), entry.get("fused"))
-    lad = [r for r in lad if (r.get("variant"), r.get("profile"), r.get("fused")) != key] + [entry]
+    key = (entry.get("variant"), entry.get("profile"))
+    lad = [r for r in lad if (r.get("variant"), r.get("profile")) != key] + [entry]
     merged["fast_ladder"] = lad
+    os.makedirs(os.path.dirname(PARITY), exist_ok=True)
     json.dump(merged, open(PARITY, "w"), indent=1)
 
 
@@ -116,7 +117,6 @@ def main():
             entry = {
                 "variant": variant,
                 "profile": f"scaled-{bits}x{S}",
-                "fused": os.environ.get("GMIX_FUSED") == "1",
                 "corpus_bytes": n,
                 "warm_bytes": warm,
                 "warm_s": round(t_warm, 1),

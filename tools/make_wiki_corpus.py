@@ -2,9 +2,9 @@
 
 Real enwik8/enwik9 are NOT available in this environment (no network
 egress and no copy on disk - verified by a filesystem-wide search), so the
-end-to-end pipeline demonstration (VERDICT r4 ask #4) runs on a synthetic
+end-to-end pipeline demonstration runs on a synthetic
 dump built to exercise the same structure the reference's STARLIT/phda9
-pipeline is defined by (/root/reference/src/preprocess/enwik9/
+pipeline is defined by (reference src/preprocess/enwik9/
 phda9_preprocess.h:609-918, article_reorder.h:91-166):
 
 - <mediawiki>/<siteinfo> intro and a truncated trailing page (coda),

@@ -1,7 +1,7 @@
-"""bpb vs match-history ring size on the 16 MB wiki corpus (VERDICT r4 #8).
+"""bpb vs match-history ring size on the 16 MB wiki corpus.
 
 The reference's match history is unbounded with 5-byte pointers
-(/root/reference/src/models/match.cpp:92-108); the TPU design bounds it to a
+(reference src/models/match.cpp:92-108); this codec bounds it to a
 2^history_bits ring per stream (config.EnsembleSpec.history_bits; best_spec
 uses 2^26 = 64 MB). This tool produces the measured bpb-vs-ring-size curve
 that justifies the bound: encode the wiki corpus (dictionary-transformed,
@@ -10,10 +10,10 @@ around the per-stream block length, and record where the curve saturates -
 a ring >= the per-stream block is lossless vs unbounded BY CONSTRUCTION
 (pointers never wrap), so the interesting region is ring < block.
 
-Usage: python tools/tpu_ring_sweep.py [BITS ...]   (history_bits values)
+Usage: python tools/ring_sweep.py [BITS ...]   (history_bits values)
 Env: GMIX_RING_PROFILE (default 11x16 -> ~1 MB dict-transformed per stream),
      GMIX_RING_CHUNK (4000).
-Results append to data/parity.json under "ring_sweep".
+Results append to analysis/parity.json under "ring_sweep".
 """
 import dataclasses
 import json
@@ -25,7 +25,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PARITY = os.path.join(REPO, "data", "parity.json")
+# measurement records (gitignored): read-modify-written, one key per tool
+PARITY = os.path.join(REPO, "analysis", "parity.json")
 
 
 def _record(entry: dict) -> None:
@@ -43,6 +44,7 @@ def _record(entry: dict) -> None:
     merged["ring_sweep"] = sorted(
         sweep, key=lambda r: (r.get("profile", ""), r.get("history_bits", 0))
     )
+    os.makedirs(os.path.dirname(PARITY), exist_ok=True)
     json.dump(merged, open(PARITY, "w"), indent=1)
 
 

@@ -1,8 +1,8 @@
-"""Measure steady-state chunk throughput vs stream count on the real TPU.
+"""Measure steady-state chunk throughput vs stream count on the accelerator.
 
 Times the jitted chunk program directly (compile excluded), reporting
 encode MB/s and per-bit step latency. Usage:
-  python tools/tpu_scaling.py [streams ...]
+  python tools/scaling.py [streams ...]
 Env: GMIX_SCALE_PROFILE (default scaled-12), GMIX_SCALE_CHUNK (default 512).
 """
 import os

@@ -1,8 +1,8 @@
-"""Warm-start sweep at the bench operating point (VERDICT r4 ask #4).
+"""Warm-start sweep at the bench operating point.
 
 The bench's throughput point splits the corpus into S short parallel streams;
-each stream pays model warmup, which is why its bpb (2.0806 at 32 KB warm,
-round 4) trails the sequential reference. The reference's own answer is a
+each stream pays model warmup, which is why its bpb trails the sequential
+reference. The reference's own answer is a
 pretrained checkpoint loaded by both sides (runner-utils.cpp:95-99) - its
 creation is offline. This tool measures HOW MUCH warm-start buys:
 
@@ -12,9 +12,9 @@ creation is offline. This tool measures HOW MUCH warm-start buys:
            encode the bench corpus, recording bpb (encode-only: exactness is
            bench.py's job).
 
-Results append to data/parity.json under "warm_sweep" (read-modify-write).
+Results append to analysis/parity.json under "warm_sweep" (read-modify-write).
 
-Usage: python tools/tpu_warm_sweep.py [--sizes 32768,131072,524288,1048576]
+Usage: python tools/warm_sweep.py [--sizes 32768,131072,524288,1048576]
 Env: GMIX_WARM_BENCH_BYTES (default 1<<22), GMIX_WARM_PROFILE (default 11x128),
      GMIX_WARM_CHUNK (default 4000).
 """
@@ -25,13 +25,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PARITY = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "parity.json"
-)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# measurement records (gitignored): read-modify-written, one key per tool
+PARITY = os.path.join(REPO, "analysis", "parity.json")
 
 
 def _corpus(n: int) -> bytes:
-    path = os.path.join(os.path.dirname(PARITY), "corpus_1m.bin")
+    path = os.path.join(REPO, "data", "corpus_1m.bin")
     data = open(path, "rb").read()
     while len(data) < n:
         data += data
@@ -51,6 +51,7 @@ def _record(entry: dict) -> None:
     sweep = [r for r in sweep if r.get("warm_bytes") != entry.get("warm_bytes")
              or r.get("profile") != entry.get("profile")] + [entry]
     merged["warm_sweep"] = sorted(sweep, key=lambda r: (r.get("profile", ""), r.get("warm_bytes", 0)))
+    os.makedirs(os.path.dirname(PARITY), exist_ok=True)
     json.dump(merged, open(PARITY, "w"), indent=1)
 
 
@@ -73,9 +74,8 @@ def main():
     spec = bench_mod._spec_for(bits)
 
     # ---- phase 1: one sequential pretrain pass with snapshots. Runs as an
-    # S=2 program with an idle second lane (single-stream TPU programs
-    # miscompile past a few hundred KB - sequential_s1.ref); lane 0 is
-    # sliced for the broadcast. ----
+    # S=2 program with an idle second lane (S=1 is not yet checked on the
+    # GPU, ROADMAP B4); lane 0 is sliced for the broadcast. ----
     import numpy as np
 
     data = _corpus(max(sizes))
